@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Ablation microbenchmark of the transport step loop on real TPU.
+"""Ablation microbenchmark of the transport step loop on the device.
 
 Replicates the structure of transport.propagate.transport_run's hot path
 (mixed-frequency pool: flush + refill + refill_period physics steps) with a
@@ -14,7 +14,6 @@ Usage:  python scripts/ablate_step.py [variant ...]
 import os
 import sys
 import time
-import zipfile
 from functools import partial
 
 import numpy as np
@@ -37,25 +36,18 @@ REFILL = int(os.environ.get("ABLATE_REFILL", 8))
 NFREQ = 44
 
 
-def load_workload():
-    workdir = "/tmp/soc_bench"
-    os.makedirs(workdir, exist_ok=True)
-    with zipfile.ZipFile("/root/reference/soc_example.zip") as z:
-        for name in ("my.ini", "tmp.dust", "tmp.dsc", "bg_intensity.bin",
-                     "freq.dat"):
-            if not os.path.exists(os.path.join(workdir, name)):
-                z.extract(name, workdir)
+def load_workload(workdir=None):
+    """(grid, medium) of the generated 64^3 example (soc_tpu.io.example),
+    written to workdir (default: a temporary directory)."""
+    import tempfile
     from soc_tpu.io.cloud import read_cloud
     from soc_tpu.io.dust import read_simple_dust, read_scattering_function
+    from soc_tpu.io.example import write_example
     from soc_tpu.transport.medium import medium_from_optics
-    n = 64
-    cloud = os.path.join(workdir, "tmp.cloud")
-    if not os.path.exists(cloud):
-        with open(cloud, "wb") as fp:
-            np.asarray([n, n, n, 1, n**3], np.int32).tofile(fp)
-            np.asarray([n**3], np.int32).tofile(fp)
-            np.ones(n**3, np.float32).tofile(fp)
-    grid = read_cloud(cloud, 1.0e3, 30)
+    if workdir is None:
+        workdir = tempfile.mkdtemp(prefix="soc_ablate.")
+    write_example(workdir)
+    grid = read_cloud(os.path.join(workdir, "tmp.cloud"), 1.0e3, 30)
     optics = [read_simple_dust(os.path.join(workdir, "tmp.dust"), 0.01)]
     freq = optics[0].freq
     dsc, csc = read_scattering_function(os.path.join(workdir, "tmp.dsc"),
@@ -79,9 +71,9 @@ def ablate_run(grid, physics, bg_photons, seed, variant="full",
     hi_base = jnp.uint32(stream_hi_base("bg"))
     source_params = dict(photons=jnp.float32(1.0), ifreq=jnp.int32(0),
                          per_freq=jnp.int32(1 << 20), hi_base=hi_base)
-    opt_const = variant in ("opt_optconst", "opt_all", "opt_all_mxu",
+    opt_const = variant in ("opt_optconst", "opt_all", "opt_all_matmul",
                             "opt_cscbf16", "opt_fusegather")
-    opt_cflat = variant in ("opt_cscflat", "opt_all", "opt_all_mxu",
+    opt_cflat = variant in ("opt_cscflat", "opt_all", "opt_all_matmul",
                             "opt_cscbf16")
     if variant == "opt_cscbf16":
         csc_flat = csc_flat.astype(jnp.bfloat16)
@@ -89,8 +81,8 @@ def ablate_run(grid, physics, bg_photons, seed, variant="full",
     # dens index and the csc index go through ONE gather of 2N elements
     fuse_tab = jnp.concatenate([grid.dens, csc_flat]) \
         if variant == "opt_fusegather" else None
-    opt_mxu = variant in ("opt_mxu_tally", "opt_all_mxu")
-    # two-level decomposition of the cell index for the MXU tally
+    opt_matmul = variant in ("opt_matmul_tally", "opt_all_matmul")
+    # two-level decomposition of the cell index for the matmul tally
     TLO = 512
     thi = (cells + TLO - 1) // TLO
 
@@ -146,8 +138,8 @@ def ablate_run(grid, physics, bg_photons, seed, variant="full",
         delta = jnp.where(tau_abs > TAULIM,
                           b_photons * (1.0 - att),
                           b_photons * tau_abs * (1.0 - 0.5 * tau_abs))
-        if opt_mxu:
-            # two-level one-hot deposit on the MXU: tabs [THI, TLO]
+        if opt_matmul:
+            # two-level one-hot deposit as a bf16 matmul: tabs [THI, TLO]
             dep = jnp.where(alive, delta * tw * ADHOC, 0.0)
             hi_i = (gidx // TLO).astype(jnp.int32)
             lo_i = (gidx % TLO).astype(jnp.int32)
@@ -301,22 +293,22 @@ def ablate_run(grid, physics, bg_photons, seed, variant="full",
              jnp.zeros(n, jnp.float32),
              jnp.zeros(n, jnp.float32),
              jnp.int32(0),
-             (jnp.zeros((thi, TLO), jnp.float32) if opt_mxu
+             (jnp.zeros((thi, TLO), jnp.float32) if opt_matmul
               else jnp.zeros(cells, jnp.float32)),
              jnp.zeros(esc_bins, jnp.float32),
              jnp.zeros(n, jnp.float32),
              jnp.float32(0.0))
     state = lax.while_loop(lambda s: s[0] < iters, body, state)
     tabs = state[18]
-    if opt_mxu:
+    if opt_matmul:
         tabs = tabs.reshape(-1)[:cells]
     return tabs, state[17]     # tabs, packets started
 
 
 VARIANTS = ["full", "bound", "no_tally", "no_escflush", "no_rng", "no_csc",
             "no_deflect", "no_gatherk", "no_densgather", "no_refill",
-            "opt_optconst", "opt_cscflat", "opt_mxu_tally", "opt_all",
-            "opt_all_mxu", "opt_cscbf16", "opt_fusegather"]
+            "opt_optconst", "opt_cscflat", "opt_matmul_tally", "opt_all",
+            "opt_all_matmul", "opt_cscbf16", "opt_fusegather"]
 
 
 def main():

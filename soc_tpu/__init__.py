@@ -1,9 +1,9 @@
-"""soc_tpu: TPU-native Monte-Carlo continuum radiative transfer.
+"""soc_tpu: Monte-Carlo continuum radiative transfer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of mjuvela/SOC
+A from-scratch JAX/XLA re-design of the capabilities of mjuvela/SOC
 (Monte-Carlo dust radiative transfer + equilibrium/stochastic dust emission +
-map rendering), built for TPU hardware: vectorized masked-lane packet
-transport, counter-based RNG, sharded multi-chip execution via jax.sharding.
+map rendering): vectorized masked-lane packet transport, counter-based RNG,
+sharded multi-device execution via jax.sharding.
 """
 
 __version__ = "0.1.0"

@@ -40,7 +40,7 @@ def main(argv=None):
     maybe_initialize()
     # --profile[=DIR] wraps the whole command in a jax.profiler trace:
     # per-kernel device timings, HLO names and memory viewer, readable
-    # with tensorboard/xprof (the TPU answer to the reference's per-kernel
+    # with tensorboard/xprof (in place of the reference's per-kernel
     # OpenCL event timing).  Default output dir: ./soc_profile
     profile_dir = None
     kept = []

@@ -5,8 +5,8 @@ class (ASOC_aux.py:79-554): one keyword + arguments per line, ``#`` comments,
 keyword matching by prefix. Unknown keywords are retained in ``self.keys`` so
 feature code can probe them (the reference's ``'CLT' in USER.KEYS`` pattern).
 
-Only semantics differ where the reference's GPU bookkeeping is meaningless on
-TPU (device/platform/local/global/fission/batch, the mmapabs/mmapemit host
+Only semantics differ where the reference's OpenCL bookkeeping is meaningless
+under XLA (device/platform/local/global/fission/batch, the mmapabs/mmapemit host
 mmap switches and the solveondev/xemonhost work-placement flags are accepted
 and retained in ``self.keys`` -- XLA owns those decisions here). Three
 reference keywords are parsed but never consumed by the reference itself
@@ -16,7 +16,7 @@ only, as is `radiusalign` (sets USER.ALIGN_DAT, which nothing in the
 reference ever reads -- ASOC_aux.py:236,337; grain alignment is instead
 driven by the `polarisation dust aalg_file` route implemented here).
 `DEFS` (raw extra -D macro strings injected into the OpenCL compile,
-ASOC_aux.py:250) is GPU-compiler plumbing with no TPU analog --
+ASOC_aux.py:250) is OpenCL-compiler plumbing with no XLA analog --
 key-retained. `polsim` (ASOC_aux.py:462) is an unfinished reference
 experiment:
 its only consumer switches read_dust to a 6-tuple return
@@ -153,7 +153,7 @@ class RunConfig:
         self.fits_prefix = "map"        # ASOC_aux.py:218 FITS_PREFIX
         self.verbose = 0
         self.batch = 30
-        self.device = ""                # accepted, ignored on TPU
+        self.device = ""                # accepted, ignored (XLA places work)
         self.keys = {}                  # every keyword kept verbatim
         # filled in by the pipeline after reading the model:
         self.nfreq = 0
@@ -423,7 +423,7 @@ class RunConfig:
         elif key.startswith("mmapabs"):
             # host-resident per-frequency absorption tally (the reference
             # mmaps FABSORBED, ASOC.py:623-638): the [CELLS, NFREQ] array
-            # never lives in device HBM; columns stream back per channel
+            # never lives in device memory; columns stream back per channel
             self.mmap_absorbed = n() if a else 1
         elif key.startswith("devices"):
             # multi-chip product path: shard every phase over N devices
@@ -645,7 +645,7 @@ directions      0.0 0.0             # observer theta phi [deg]; repeatable
 #                                   # skip the absorbed file
 # scattering    scat                # ASOCS FITS output name stem (fits 1)
 
-# ---- accepted for compatibility, ignored on TPU -----------------------
+# ---- accepted for compatibility, ignored ------------------------------
 # device        g
 # batch         30
 # verbose       1

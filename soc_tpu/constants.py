@@ -1,7 +1,7 @@
 """Physical constants and unit conventions shared across the framework.
 
 The numerical values (and the 1e20 ``FACTOR`` photon-count scaling convention)
-match the reference implementation (cf. /root/reference/ASOC_aux.py:26-43) so
+match the reference implementation (cf. ASOC_aux.py:26-43) so
 that on-disk artifacts (absorbed.data, emitted.data, *.T, map_dir_XX.bin) are
 bit-compatible in format and allclose in value.
 """

@@ -11,7 +11,7 @@ non-root cell to its parent's level-local index.
 This layout is gather-friendly (single int32 index per lookup) and is kept
 verbatim so model files round-trip bit-exactly. All arrays live on device; the
 static shape metadata (nx, ny, nz, levels) is Python-side so ``jax.jit``
-specializes the traversal code per model -- the TPU analog of the reference's
+specializes the traversal code per model -- the analog of the reference's
 ``-D NX=.. -D LEVELS=..`` kernel recompilation.
 """
 

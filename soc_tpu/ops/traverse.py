@@ -1,6 +1,6 @@
 """Jittable octree traversal: the geometric core of the transport engine.
 
-TPU-native re-design of the reference's per-work-item traversal routines
+A re-design of the reference's per-work-item traversal routines for XLA
 (kernel_ASOC_aux.c: IndexG:131, Index:198, GetStep:282). Differences from the
 OpenCL original:
 
@@ -153,14 +153,13 @@ def index_update(grid, pos, level, ind, active):
 # Ancestor-stack traversal: the hot-loop variant.
 #
 # index_update's up-walk reads the PAR array once per level -- on a 3-level
-# grid that makes every transport step a chain of 5 serialized HBM gathers
+# grid that makes every transport step a chain of 5 serialized device-memory gathers
 # (dens + 2x par + 2x descend), and the par gathers are pure latency: the
 # parent's level-local index is fully determined by the lane's own descent
 # history. Carrying that history -- anc[k] = the lane's ancestor index at
 # level k -- turns the up-walk into ALU-only work (sub-octet ids come from
 # ind % 8, positions from the stacked indices), leaving only the dens
-# gathers of the down-walk. Measured 20 -> ~2x faster stepping on the
-# 3-level bench cloud.
+# gathers of the down-walk.
 #
 # The stack is (levels-1) int32 per lane, maintained by the *_stack
 # functions below; entries at k >= level are stale by construction.

@@ -1,16 +1,16 @@
 """Multi-host execution: jax.distributed initialization (SURVEY 5.8).
 
-The reference is single-process (ASOC.py:179-181 hardcodes DEVICES=1); the
-TPU framework scales over hosts with JAX's multi-controller runtime: every
+The reference is single-process (ASOC.py:179-181 hardcodes DEVICES=1); this
+framework scales over hosts with JAX's multi-controller runtime: every
 process runs the same driver, `jax.devices()` exposes the global device
 set, and the (dp, freq) product mesh (parallel/product.py) spans all of
-them -- collectives ride ICI within a slice and DCN across slices, with no
+them -- XLA runs the collectives between devices and hosts, with no
 application-level communication code.
 
 Initialization sources, in priority order:
   1. explicit arguments (initialize(coordinator=..., ...))
   2. SOC_TPU_COORDINATOR / SOC_TPU_NUM_PROCESSES / SOC_TPU_PROCESS_ID env
-  3. cluster auto-detection (TPU pod metadata, SLURM, ...) -- JAX's own
+  3. cluster auto-detection (SLURM, ...) -- JAX's own
      jax.distributed.initialize() with no arguments
 
 The CLI calls maybe_initialize() once at startup; it is a no-op unless the

@@ -6,7 +6,7 @@ them in a second run). Here that becomes a LIVE exchange over the 'dp' mesh
 axis: the root grid is split into Z-slabs, every device steps the packets
 inside its slab, and packets crossing a slab face are packed into fixed-size
 buffers and handed to the neighbor with ``lax.ppermute`` between stepping
-super-steps -- communication rides ICI and overlaps with the next block of
+super-steps -- the exchange overlaps with the next block of
 local stepping that XLA schedules around it.
 
 Key invariants:

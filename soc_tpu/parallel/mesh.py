@@ -7,7 +7,7 @@ both become mesh axes:
   * 'dp'   -- packet data-parallel: every device simulates an id-disjoint
               slice of the packet budget (RNG streams are keyed by global
               (phase|freq, in-freq index) ids, so results are device-count
-              invariant); per-cell tallies are reduced with psum over ICI.
+              invariant); per-cell tallies are reduced with psum.
   * 'freq' -- frequency-parallel: frequency channels are blocked over the
               second axis; each block runs its channels' transport locally
               and the integrated tally is psum'ed (the trapezoid sum over

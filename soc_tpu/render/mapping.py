@@ -1,10 +1,10 @@
 """Map rendering: LOS integration of dust emission onto observer maps.
 
 Reimplements the reference Mapping kernel (kernel_ASOC_map.c:496-888) with a
-TPU-native twist: instead of one kernel launch per frequency (reference loops
+different shape: instead of one kernel launch per frequency (reference loops
 IFREQ and re-stages EMIT, ASOC.py:3100-3130), every ray integrates *all
 frequencies at once* -- the per-step work becomes a [PIXELS, NFREQ] vector
-update, which is exactly the lane-parallel shape the VPU wants, and the
+update, which vectorises over the spectrum, and the
 geometry (the serial part) is amortized over the whole spectrum.
 
 Radiative transfer along the ray (stepping *away* from the observer):

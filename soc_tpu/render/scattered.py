@@ -11,7 +11,7 @@ with forced first scattering (FFS) at packet birth: the entry ray's total
 scattering depth tau gives W = 1-exp(-tau), free_path = -log(1 - W u),
 PHOTONS *= W (kernel_ASOC_sca.c:227-244).
 
-TPU structure -- three jitted phases alternated from the host:
+Structure -- three jitted phases alternated from the host:
   A. spawn: generate a full pool of packets + vectorized FFS march
   B. propagate: masked-lane loop until the pool dies OR the event buffer is
      nearly full; scattering events are appended via a prefix-sum
@@ -596,7 +596,7 @@ def sca_run(grid, physics, source_params, total_packets, carry, events,
 
     The separate spawn/propagate phases each marched a full pool until the
     SLOWEST lane finished, so mean occupancy decayed with the chord-length
-    spread (measured ~2x waste on the soc_example workload). Here every
+    spread. Here every
     lane cycles through stages at ~100% occupancy:
 
       stage 0 (ffs): march the entry ray to the far boundary accumulating

@@ -1,8 +1,8 @@
 """Counter-based RNG for the transport kernels.
 
 The reference uses the skip-ahead MWC64X generator to give every OpenCL work
-item an independent stream (mwc64x_rng.cl, kernel_ASOC.c:71-77). The TPU-native
-equivalent is a counter-based generator: every photon packet owns the stream
+item an independent stream (mwc64x_rng.cl, kernel_ASOC.c:71-77). The equivalent
+here is a counter-based generator: every photon packet owns the stream
 ``(seed, packet_id)`` and advances a private 32-bit draw counter. Streams are
 therefore reproducible and *device-count invariant* -- resharding packets over
 a different mesh never changes the random numbers a given packet consumes.

@@ -7,7 +7,7 @@ emission solves with an O(1) per-cell lookup. The "tree" is a sparse encoding
 of a 3-D binning; here the binning is materialized as a dense
 [NB, NB, NB, NFREQ] grid (a few hundred MB at most) with
 nearest-occupied-bin hole filling (the role of kernel_tree3's Interpolate /
-Fill), which maps onto the TPU as pure gathers.
+Fill), which maps onto the device as pure gathers.
 
 Workflow (reference ASOC.py libabs/libmaps + A2E_LIB):
   1. full A2E solve once -> (absorbed, emitted) training pairs

@@ -3,8 +3,10 @@
 Learns the per-cell mapping log(absorptions at a few reference wavelengths)
 -> log(emission spectrum), replacing the expensive per-cell A2E solve for
 repeated runs (reference: PyTorch MLP with LeakyReLU hidden layers,
-configurable like nnnet=[13,17,13]; ASOC_aux_NN.py:32-210). Implemented with
-flax + optax; weights stored as a plain pickled pytree in <prefix>.nn.
+configurable like nnnet=[13,17,13]; ASOC_aux_NN.py:32-210). The MLP is plain
+jax.numpy trained with optax; weights are a nested dict
+``{"params": {"Dense_<i>": {"kernel": [in, out], "bias": [out]}}}`` stored as
+a plain pickled pytree in <prefix>.nn.
 
 Reference ``.nn`` files (torch ``state_dict`` checkpoints written by
 ASOC_aux_NN.py:159) are also accepted: nn_load sniffs the torch zip
@@ -23,20 +25,34 @@ import zipfile
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
 
-class EmissionMLP(nn.Module):
-    hidden: tuple
-    n_out: int
+def mlp_init(key, n_in, hidden, n_out):
+    """Parameter pytree of an MLP with LeakyReLU hidden layers: LeCun
+    normal kernels, zero biases."""
+    widths = [n_in] + list(hidden) + [n_out]
+    params = {}
+    for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+        key, sub = jax.random.split(key)
+        params["Dense_%d" % i] = {
+            "kernel": jax.random.normal(sub, (a, b), jnp.float32)
+            / np.sqrt(a),
+            "bias": jnp.zeros(b, jnp.float32)}
+    return {"params": params}
 
-    @nn.compact
-    def __call__(self, x):
-        for h in self.hidden:
-            x = nn.Dense(h)(x)
-            x = nn.leaky_relu(x, negative_slope=0.01)
-        return nn.Dense(self.n_out)(x)
+
+def mlp_apply(params, x):
+    """Forward pass of mlp_init's network (LeakyReLU slope 0.01)."""
+    layers = params["params"]
+    n = len(layers)
+    for i in range(n):
+        d = layers["Dense_%d" % i]
+        x = jnp.dot(x, d["kernel"], precision=jax.lax.Precision.HIGHEST) \
+            + d["bias"]
+        if i < n - 1:
+            x = jax.nn.leaky_relu(x, negative_slope=0.01)
+    return x
 
 
 def _log_standardize(x, eps=1e-33):
@@ -55,16 +71,15 @@ def nn_fit(absorbed, emitted, hidden=(13, 17, 13), epochs=400, lr=3e-3,
     """
     x, in_mu, in_sd = _log_standardize(absorbed)
     y, out_mu, out_sd = _log_standardize(emitted)
-    model = EmissionMLP(hidden=tuple(hidden), n_out=y.shape[1])
-    key = jax.random.PRNGKey(seed)
-    params = model.init(key, jnp.zeros((1, x.shape[1])))
+    params = mlp_init(jax.random.PRNGKey(seed), x.shape[1], hidden,
+                      y.shape[1])
     tx = optax.adam(lr)
     opt_state = tx.init(params)
 
     @jax.jit
     def step(params, opt_state, xb, yb):
         def loss_fn(p):
-            pred = model.apply(p, xb)
+            pred = mlp_apply(p, xb)
             return jnp.mean((pred - yb) ** 2)
         loss, grads = jax.value_and_grad(loss_fn)(params)
         updates, opt_state = tx.update(grads, opt_state)
@@ -89,8 +104,6 @@ def nn_fit(absorbed, emitted, hidden=(13, 17, 13), epochs=400, lr=3e-3,
 
 def nn_solve(model_dict, absorbed, batch=1 << 16):
     """Evaluate the surrogate: [CELLS, n_abs] -> [CELLS, n_emit]."""
-    model = EmissionMLP(hidden=model_dict["hidden"],
-                        n_out=model_dict["n_out"])
     linear = model_dict.get("norm") == "ref-linear"
     if linear:
         # the reference's normalization: clip, divide by the per-channel
@@ -104,7 +117,7 @@ def nn_solve(model_dict, absorbed, batch=1 << 16):
 
     # params as a traced argument: a closure would constant-fold the
     # weights into the executable and recompile on every nn_solve call
-    apply = jax.jit(lambda params, xb: model.apply(params, xb))
+    apply = jax.jit(mlp_apply)
 
     outs = []
     for i0 in range(0, x.shape[0], batch):
@@ -141,7 +154,7 @@ def import_torch_nn(path, a_norm=None, e_norm=None):
                for i in idx]
     params = {"params": {}}
     for d, (w, b) in enumerate(weights):
-        # torch Linear stores [out, in]; flax Dense kernels are [in, out]
+        # torch Linear stores [out, in]; Dense kernels are [in, out]
         params["params"]["Dense_%d" % d] = {
             "kernel": jnp.asarray(np.ascontiguousarray(w.T)),
             "bias": jnp.asarray(b)}

@@ -107,7 +107,7 @@ def densify_weights(sd, ne, nfreq):
     The sparse stream is l-major then u ascending; each (l, u) pair holds
     weights for frequency bins L1[l,u]..L2[l,u] inclusive (kernel_A2E.c:45-54
     consumes them in exactly this order). Densifying turns the per-cell
-    triple loop into one MXU matmul.
+    triple loop into one matmul.
     """
     w = np.zeros((ne, ne, nfreq), np.float32)
     idx = 0

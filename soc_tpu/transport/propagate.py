@@ -1,12 +1,12 @@
 """Photon-packet propagation: the hot loop of the framework.
 
-TPU-native redesign of the reference's per-work-item propagation loops
+A redesign, for XLA, of the reference's per-work-item propagation loops
 (SimRAM_PB/CL, kernel_ASOC.c:557-806). One fused ``lax.while_loop`` steps a
 fixed-shape pool of packet lanes; every iteration advances each live packet by
 one *event* (cell-boundary crossing or scattering) and immediately **refills
 lanes that died** with fresh packets from the remaining budget via an
 exclusive prefix-sum over dead lanes. This keeps lane occupancy near 100% for
-the entire run -- the TPU answer to the reference's GPU oversubscription -- and
+the entire run -- in place of the reference's GPU oversubscription -- and
 makes the random stream of every packet a pure function of its global id
 (device-count and batch-size invariant).
 
@@ -22,11 +22,10 @@ Physics per step (kernel_ASOC.c semantics):
     attenuate, accumulate tau, cross into the next cell
   * failed steps are recovered by a PEPS nudge (kernel_ASOC.c:640-672)
 
-March/service split: measurement (scripts/ablate_step.py on v5e) shows the
-step cost is the count of gather/scatter memory ops -- the RNG and the
-deflection trigonometry are free, but the phase-function table gather is as
-expensive as the density gather + tally deposit combined. Scattering events
-are only a few percent of steps, so the loop is split: *march* steps do
+March/service split: the step cost is dominated by gather/scatter memory
+ops (scripts/ablate_step.py ablates them one by one), and the phase-function
+table gather is one of the larger ones. Scattering events are only a few
+percent of steps, so the loop is split: *march* steps do
 traversal + deposit only, and a lane whose free path ends freezes at the
 scattering point (``pending``); every ``service_period`` march steps a
 *service* step draws the new direction + free path for all pending lanes at
@@ -274,9 +273,9 @@ def make_step_fns(grid, physics, seed, *, per_freq_tally=False,
     uniform_freq = (jnp.ndim(kabs_t) == 0)
     cells = grid.cells
 
-    # Mixed-frequency pools: per-lane dynamic-row gathers dominate the step
-    # cost on TPU (measured: csc[ifreq, bin] 2-D gather ~47% of step time,
-    # kabs/ksca/tw [ifreq] gathers ~15%). A packet's frequency is fixed for
+    # Mixed-frequency pools: per-lane dynamic-row gathers (csc[ifreq, bin]
+    # and kabs/ksca/tw[ifreq]) are a large share of the step. A packet's
+    # frequency is fixed for
     # its whole life, so hoist those gathers out of the inner step: once per
     # refill body we materialize per-lane kabs/ksca/tw and a flattened-CSC
     # row offset (loop-invariant across the refill_period inner steps), and
@@ -722,9 +721,6 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
     gen = GENERATORS[source_kind]
     if service_period is None:
         import os
-        # measured sweep on v5e (uniform + 3-level octree soc_example
-        # workloads): refill=16/service=16 beats the old 8/4 on both
-        # (908k vs 890k uniform, 696k vs 620k octree packets/s)
         service_period = int(os.environ.get("SOC_TPU_SERVICE_PERIOD", "16"))
     service_period = min(service_period, refill_period)
     if refill_period % service_period:
@@ -760,7 +756,8 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
             onehot = (b.ifreq[:, None]
                       == jnp.arange(esc_bins, dtype=jnp.int32)[None, :])
             esc = esc + jnp.einsum("n,nk->k", flush,
-                                   onehot.astype(jnp.float32))
+                                   onehot.astype(jnp.float32),
+                                   precision=lax.Precision.HIGHEST)
         esc_pending = jnp.where(dead, 0.0, esc_pending)
 
         # ---- serve pending split-clone requests into dead lanes first
@@ -856,7 +853,8 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
         onehot = (b.ifreq[:, None]
                   == jnp.arange(esc_bins, dtype=jnp.int32)[None, :])
         esc = esc + jnp.einsum("n,nk->k", esc_pending,
-                               onehot.astype(jnp.float32))
+                               onehot.astype(jnp.float32),
+                               precision=lax.Precision.HIGHEST)
     extras = []
     if with_ali:
         extras.append(xab)

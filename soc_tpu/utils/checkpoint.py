@@ -1,13 +1,14 @@
 """Mid-run preemption checkpointing of the transport phase.
 
 SURVEY 5.4: the reference's only restartability is its stage-wise files;
-TPU jobs get preempted MID-stage, so the simulation state itself must be
+long device jobs get preempted MID-stage, so the simulation state itself must be
 resumable. Because every packet's random stream is a pure function of its
 global (phase | iteration | frequency, in-frequency index) id, NO RNG state
 needs saving -- a checkpoint is just the accumulated tallies plus the set
 of completed transport units (one unit = one frequency sweep of one
-source). Re-running the remaining units reproduces bit-identical results
-to an uninterrupted run.
+source). Re-running the remaining units reproduces the results of an
+uninterrupted run: bit-identical on the CPU, and within the float32
+atomics' summation-order spread on a GPU.
 
 File format: .npz with tabs/intf tally snapshots, the unit-key list and
 each unit's escaped-photon count. Enabled by the ini keyword
@@ -15,8 +16,8 @@ each unit's escaped-photon count. Enabled by the ini keyword
 simulation AND the phase-2 re-emission iterations: the plain cell sweep
 records per-(iteration, frequency) units, every iteration ends with a
 state snapshot (emitted/temperature/reference-field/ALI carries), and the
-counter-based RNG makes a resumed run bit-identical to an uninterrupted
-one from either granularity.
+counter-based RNG makes a resumed run reproduce an uninterrupted one from
+either granularity (bitwise on the CPU).
 """
 
 import os

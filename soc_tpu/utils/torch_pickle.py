@@ -2,7 +2,7 @@
 
 The reference trains its NN emission surrogate with torch and persists it
 via ``torch.save(model.state_dict(), '<prefix>_<dust>.nn')``
-(/root/reference/ASOC_aux_NN.py:159) -- a zip archive holding a pickle
+(ASOC_aux_NN.py:159) -- a zip archive holding a pickle
 (``data.pkl``) whose tensors are persistent-id references into raw little-
 endian storage blobs (``data/<key>``).  This framework has no torch
 dependency, so the state dict is recovered here with a restricted

@@ -34,13 +34,10 @@ devices         8
 
 
 def prepare(workdir):
-    import shutil
     import numpy as np
     from soc_tpu.io.cloud import write_hierarchy
-    os.makedirs(workdir, exist_ok=True)
-    for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        if not os.path.exists(os.path.join(workdir, f)):
-            shutil.copy(os.path.join("/tmp/socex", f), workdir)
+    from soc_tpu.io.example import write_dust_inputs
+    write_dust_inputs(workdir)
     n = 8
     cloud = os.path.join(workdir, "tmp.cloud")
     if not os.path.exists(cloud):

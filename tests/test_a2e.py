@@ -1,4 +1,4 @@
-"""A2E stochastic solver: vectorized TPU path vs direct loop reference."""
+"""A2E stochastic solver: vectorized device path vs direct loop reference."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -6,7 +6,7 @@ import pytest
 
 from soc_tpu.solve.solver_file import (SolverData, SizeData, read_solver,
                                        write_solver, densify_weights)
-from soc_tpu.solve import stochastic
+from soc_tpu.solve import a2e_reference, stochastic
 
 
 def random_solver(ne=16, nfreq=8, nsize=2, seed=0):
@@ -41,43 +41,8 @@ def random_solver(ne=16, nfreq=8, nsize=2, seed=0):
 
 
 def dosolve_reference(solver, isize, absorbed_row):
-    """Direct float64 port of the per-cell DoSolve loops (kernel_A2E.c:2-104)
-    consuming the sparse stream in file order."""
-    sd = solver.sizes[isize]
-    ne, nfreq = solver.ne, solver.nfreq
-    af = solver.sk_abs[isize].astype(np.float64) / solver.k_abs
-    af = np.clip(af / (solver.s_frac[isize] * solver.grain_density),
-                 1e-32, 1e100)
-    absf = absorbed_row.astype(np.float64) * af
-    L = np.zeros((ne, ne))
-    idx = 0
-    for l in range(ne - 1):
-        for u in range(l + 1, ne):
-            a, b = sd.l1[l, u], sd.l2[l, u]
-            if b < a or a < 0:
-                continue
-            acc = 0.0
-            for i in range(a, b + 1):
-                acc += absf[i] * sd.iw[idx]
-                idx += 1
-            L[u, l] = max(acc, 0.0)
-    # fold
-    for j in range(ne - 3, 0, -1):
-        for i in range(j):
-            L[j, i] += L[j + 1, i]
-    # solve
-    x = np.zeros(ne)
-    x[0] = 1e-20
-    for j in range(1, ne):
-        s = np.dot(L[j, :j], x[:j])
-        x[j] = max(s / (sd.tdown[j] + 1e-30), 0.0)
-        if x[j] > 1e20:
-            x[: j + 1] *= 1e-20
-    x /= x.sum()
-    emit = np.zeros(nfreq)
-    for f in range(nfreq):
-        emit[f] = np.dot(sd.ea[f, sd.ibeg[f]:], x[sd.ibeg[f]:])
-    return emit
+    """Float64 loop port of DoSolve for one cell (a2e_reference)."""
+    return a2e_reference.dosolve(solver, isize, absorbed_row)[0]
 
 
 def test_solver_file_roundtrip(tmp_path):
@@ -191,83 +156,55 @@ def test_streaming_solve_matches_in_memory(tmp_path):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_pallas_fused_matches_solve_batch():
-    """The fused Pallas kernel (interpret mode on CPU) must reproduce the
-    XLA solve_batch bit-nearly: same math, prefolded weights."""
-    from soc_tpu.solve.pallas_a2e import solve_batch_fused
-    solver = random_solver(ne=128, nfreq=12, nsize=1, seed=11)
-    rng = np.random.default_rng(4)
-    absorbed = (rng.random((256, 12)) * 1e4).astype(np.float32)
-    w_flat, tdown, ea = stochastic.prepare_size_arrays(solver, 0)
-    w_t, _, ea_n = stochastic.prepare_size_arrays_fused(solver, 0)
-    ref = np.asarray(stochastic.solve_batch(w_flat, tdown, ea,
-                                            jnp.asarray(absorbed), 128))
-    got = np.asarray(solve_batch_fused(w_t, tdown, jnp.asarray(ea_n),
-                                       jnp.asarray(absorbed), 128,
-                                       tile=128, interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-25)
+def _stacks(solver, n):
+    return stochastic.size_stacks(solver, n)
 
 
-def test_pallas_chunk_scan_matches_loop():
-    """solve_chunk_all_sizes (scan over sizes on device) == per-size loop,
-    including the alignment-weighted polarized accumulation."""
-    from soc_tpu.solve.pallas_a2e import (solve_batch_fused,
-                                          solve_chunk_all_sizes)
-    solver = random_solver(ne=128, nfreq=10, nsize=3, seed=12)
+def test_size_scan_matches_per_size_loop():
+    """solve_all_chunks (lax.scan over sizes on the device) == the sum of
+    per-size solve_batch calls, including the alignment-weighted
+    polarized accumulation."""
+    solver = random_solver(ne=32, nfreq=10, nsize=3, seed=12)
     rng = np.random.default_rng(5)
-    chunk = (rng.random((128, 10)) * 1e4).astype(np.float32)
-    preps = [stochastic.prepare_size_arrays_fused(solver, i)
-             for i in range(3)]
-    w_stack = jnp.stack([p[0] for p in preps])
-    td_stack = jnp.stack([p[1] for p in preps])
-    ea_stack = jnp.stack([jnp.asarray(p[2]) for p in preps])
-    align = rng.random((3, 128)).astype(np.float32)
-    tot, ptot = solve_chunk_all_sizes(w_stack, td_stack, ea_stack,
-                                      jnp.asarray(chunk),
-                                      jnp.asarray(align), 128,
-                                      interpret=True)
-    ref = np.zeros((128, 10), np.float32)
-    pref = np.zeros((128, 10), np.float32)
-    for i, p in enumerate(preps):
-        em = np.asarray(solve_batch_fused(p[0], p[1], jnp.asarray(p[2]),
-                                          jnp.asarray(chunk), 128,
-                                          interpret=True))
+    chunk = (rng.random((64, 10)) * 1e4).astype(np.float32)
+    align = rng.random((3, 64)).astype(np.float32)
+    tot, ptot = stochastic.solve_all_chunks(
+        *_stacks(solver, 3), jnp.asarray(chunk[None]),
+        jnp.asarray(align[None]), 32)
+    ref = np.zeros((64, 10), np.float32)
+    pref = np.zeros((64, 10), np.float32)
+    for i in range(3):
+        w, td, ea = stochastic.prepare_size_arrays(solver, i)
+        em = np.asarray(stochastic.solve_batch(w, td, ea,
+                                               jnp.asarray(chunk), 32))
         ref += em
         pref += em * align[i][:, None]
-    np.testing.assert_allclose(np.asarray(tot), ref, rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(ptot), pref, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(tot[0]), ref, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(ptot[0]), pref, rtol=1e-6)
 
 
-def test_pallas_superbatch_matches_chunks():
-    """solve_all_chunks (superbatched multi-chunk dispatch) == per-chunk
-    solve_chunk_all_sizes, with and without the polarized accumulator."""
-    from soc_tpu.solve.pallas_a2e import (solve_all_chunks,
-                                          solve_chunk_all_sizes)
-    solver = random_solver(ne=128, nfreq=10, nsize=2, seed=12)
+def test_superbatch_matches_chunks():
+    """A superbatch of chunks in one dispatch == each chunk on its own,
+    with and without the polarized accumulator."""
+    solver = random_solver(ne=32, nfreq=10, nsize=2, seed=12)
     rng = np.random.default_rng(6)
-    chunks = (rng.random((3, 128, 10)) * 1e4).astype(np.float32)
-    preps = [stochastic.prepare_size_arrays_fused(solver, i)
-             for i in range(2)]
-    w_stack = jnp.stack([p[0] for p in preps])
-    td_stack = jnp.stack([p[1] for p in preps])
-    ea_stack = jnp.stack([jnp.asarray(p[2]) for p in preps])
-    align = rng.random((3, 2, 128)).astype(np.float32)
-    tot, ptot = solve_all_chunks(w_stack, td_stack, ea_stack,
-                                 jnp.asarray(chunks), jnp.asarray(align),
-                                 128, interpret=True)
-    tot_np, _ = solve_all_chunks(w_stack, td_stack, ea_stack,
-                                 jnp.asarray(chunks), None, 128,
-                                 interpret=True)
+    chunks = (rng.random((3, 64, 10)) * 1e4).astype(np.float32)
+    align = rng.random((3, 2, 64)).astype(np.float32)
+    st = _stacks(solver, 2)
+    tot, ptot = stochastic.solve_all_chunks(
+        *st, jnp.asarray(chunks), jnp.asarray(align), 32)
+    tot_np, none = stochastic.solve_all_chunks(
+        *st, jnp.asarray(chunks), None, 32)
+    assert none is None
     for k in range(3):
-        rt, rp = solve_chunk_all_sizes(w_stack, td_stack, ea_stack,
-                                       jnp.asarray(chunks[k]),
-                                       jnp.asarray(align[k]), 128,
-                                       interpret=True)
-        np.testing.assert_allclose(np.asarray(tot[k]), np.asarray(rt),
+        rt, rp = stochastic.solve_all_chunks(
+            *st, jnp.asarray(chunks[k:k + 1]), jnp.asarray(align[k:k + 1]),
+            32)
+        np.testing.assert_allclose(np.asarray(tot[k]), np.asarray(rt[0]),
                                    rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(ptot[k]), np.asarray(rp),
+        np.testing.assert_allclose(np.asarray(ptot[k]), np.asarray(rp[0]),
                                    rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(tot_np[k]), np.asarray(rt),
+        np.testing.assert_allclose(np.asarray(tot_np[k]), np.asarray(rt[0]),
                                    rtol=1e-6)
 
 
@@ -288,32 +225,26 @@ def test_cli_profile_trace(tmp_path):
     assert list(prof.rglob("*.xplane.pb"))
 
 
-def test_pallas_sharded_chunks_match_single_device():
+def test_sharded_chunks_match_single_device():
     """solve_all_chunks_sharded (chunk axis over the 8-device mesh) must
     reproduce the single-device superbatch bit-for-bit -- the cell solve
     has no cross-chunk coupling, so sharding only relabels devices."""
-    from soc_tpu.solve.pallas_a2e import (solve_all_chunks,
-                                          solve_all_chunks_sharded)
-    solver = random_solver(ne=128, nfreq=10, nsize=2, seed=12)
+    import jax
+    assert len(jax.local_devices()) == 8
+    solver = random_solver(ne=32, nfreq=10, nsize=2, seed=12)
     rng = np.random.default_rng(9)
-    chunks = (rng.random((8, 128, 10)) * 1e4).astype(np.float32)
-    w_stack, td_stack, ea_stack = stochastic.get_fused_stacks(solver)
-    align = rng.random((8, 2, 128)).astype(np.float32)
-    ref_t, ref_p = solve_all_chunks(w_stack, td_stack, ea_stack,
-                                    jnp.asarray(chunks),
-                                    jnp.asarray(align), 128,
-                                    interpret=True)
-    sh_t, sh_p = solve_all_chunks_sharded(w_stack, td_stack, ea_stack,
-                                          jnp.asarray(chunks),
-                                          jnp.asarray(align), 128,
-                                          interpret=True)
+    chunks = jnp.asarray((rng.random((8, 64, 10)) * 1e4).astype(np.float32))
+    align = jnp.asarray(rng.random((8, 2, 64)).astype(np.float32))
+    st = _stacks(solver, 2)
+    ref_t, ref_p = stochastic.solve_all_chunks(*st, chunks, align, 32)
+    sh_t, sh_p = stochastic.solve_all_chunks_sharded(*st, chunks, align, 32)
     np.testing.assert_array_equal(np.asarray(sh_t), np.asarray(ref_t))
     np.testing.assert_array_equal(np.asarray(sh_p), np.asarray(ref_p))
-    sh_t2, none = solve_all_chunks_sharded(w_stack, td_stack, ea_stack,
-                                           jnp.asarray(chunks), None, 128,
-                                           interpret=True)
+    sh_t2, none = stochastic.solve_all_chunks_sharded(*st, chunks, None, 32)
     assert none is None
     np.testing.assert_array_equal(np.asarray(sh_t2), np.asarray(ref_t))
+    with pytest.raises(ValueError, match="multiple"):
+        stochastic.solve_all_chunks_sharded(*st, chunks[:3], None, 32)
 
 
 def test_cli_reference_arg_list(tmp_path):
@@ -373,25 +304,35 @@ def test_cli_reference_arg_list(tmp_path):
         np.testing.assert_allclose(out3, ref, rtol=1e-6)
 
 
-def test_fused_dispatch_pipeline_on_cpu(monkeypatch):
-    """The superbatched dispatch loop with the drain thread (normally
-    TPU-only) must match the exact XLA path. SOC_TPU_A2E=fused forces it
-    onto the CPU mesh with the Pallas kernel in interpret mode, covering
-    the pipeline bookkeeping itself: superbatch slicing, tail padding,
-    the ordered drain-thread stores, and the polarized accumulator."""
-    solver = random_solver(ne=128, nfreq=6, nsize=2, seed=3)
-    # precondition for the pre-folded kernel == clamped-XLA equivalence
-    assert stochastic.fused_weights_nonneg(solver)
+def test_solve_emission_aalg_matches_oracle():
+    """solve_emission with aalg == the float64 loop port, total and
+    polarized, on a cell count that leaves a padded tail chunk."""
+    solver = random_solver(ne=32, nfreq=6, nsize=3, seed=3)
+    solver.size_a[:] = [1e-7, 1e-6, 1e-5]
     rng = np.random.default_rng(9)
-    cells = 700          # not a multiple of the 2x128-row superbatch
+    cells = 77
+    absorbed = rng.random((cells, 6)).astype(np.float32)
+    aalg = rng.choice([1e-8, 3e-6, 1.0], cells).astype(np.float32)
+    out, pout = stochastic.solve_emission(solver, absorbed, clip_last=False,
+                                          aalg=aalg)
+    ref, pref = a2e_reference.solve_emission(solver, absorbed, aalg=aalg)
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(pout, pref, rtol=5e-4, atol=1e-5 * scale)
+    assert 0 < pout.sum() < out.sum()
+
+
+def test_solve_emission_superbatch_bookkeeping():
+    """Many superbatches with a padded tail (batch 8 over 700 cells on 8
+    devices, the next superbatch dispatched before the last is stored)
+    give the same rows as one chunk per device."""
+    solver = random_solver(ne=32, nfreq=6, nsize=2, seed=3)
+    rng = np.random.default_rng(9)
+    cells = 700
     absorbed = rng.random((cells, 6)).astype(np.float32)
     aalg = np.full(cells, 2e-7, np.float32)
-    ref, pref = stochastic.solve_emission(solver, absorbed, batch=128,
+    ref, pref = stochastic.solve_emission(solver, absorbed, aalg=aalg)
+    out, pout = stochastic.solve_emission(solver, absorbed, batch=8,
                                           aalg=aalg)
-    monkeypatch.setenv("SOC_TPU_A2E", "fused")
-    monkeypatch.setenv("SOC_TPU_A2E_SHARD", "0")
-    out, pout = stochastic.solve_emission(solver, absorbed, batch=128,
-                                          aalg=aalg)
-    scale = float(np.abs(ref).max())
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-6 * scale)
-    np.testing.assert_allclose(pout, pref, rtol=1e-4, atol=1e-6 * scale)
+    np.testing.assert_allclose(out, ref, rtol=1e-6)
+    np.testing.assert_allclose(pout, pref, rtol=1e-6)

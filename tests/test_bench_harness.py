@@ -1,10 +1,9 @@
 """Integrity of the bench harness itself.
 
-The driver runs bench.py unattended on real hardware at the end of every
-round; a broken code path there costs a whole round's performance
-evidence.  This drives the reference-scale section end-to-end at toy
-size on the CPU mesh (the env knobs exist exactly for this) and checks
-every reported quantity is present and sane.
+bench.py runs unattended on the accelerator; a broken code path there
+costs the performance evidence of a run.  This drives the reference-scale
+section end-to-end at toy size on the CPU mesh (the env knobs exist
+exactly for this) and checks every reported quantity is present and sane.
 """
 
 import json
@@ -53,11 +52,6 @@ def test_bench_large_section(bench, tmp_path):
               "stepping_inloop_bound_msteps_per_s",
               "sol_stepping_fraction_vs_random_floor"):
         assert np.isfinite(out[k]) and out[k] > 0, k
-    assert out["a2e_link"]["serial_ceiling_cells_per_sec"] > 0
-    # the duplex ceiling (slower direction alone) always admits at least
-    # the serial up+down rate
-    assert (out["a2e_link"]["duplex_ceiling_cells_per_sec"]
-            >= out["a2e_link"]["serial_ceiling_cells_per_sec"])
-    assert 0 <= out["a2e_link_efficiency"]
+    assert out["a2e_stream_rows"] == 1 << 12
     assert out["sane"] is True
     json.dumps(out)                       # JSON-serializable as reported

@@ -13,7 +13,6 @@ import pytest
 from soc_tpu.io.cloud import write_hierarchy
 from soc_tpu.pipeline import driver
 
-SOCEX = "/tmp/socex"
 N = 10
 
 INI = """
@@ -36,9 +35,9 @@ checkpoint      run.ckpt
 """
 
 
-def make_model(tmp_path):
+def make_model(tmp_path, socex):
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     write_hierarchy(tmp_path / "tmp.cloud", N, N, N, [N ** 3],
                     [np.ones(N ** 3, np.float32)])
     ini = tmp_path / "run.ini"
@@ -50,8 +49,8 @@ class Preempt(Exception):
     pass
 
 
-def test_preempted_run_resumes_bit_identically(tmp_path, monkeypatch):
-    ini = make_model(tmp_path)
+def test_preempted_run_resumes_bit_identically(tmp_path, monkeypatch, socex):
+    ini = make_model(tmp_path, socex)
 
     # uninterrupted reference
     res_full = driver.run(ini, lanes=1 << 10)
@@ -85,11 +84,11 @@ def test_preempted_run_resumes_bit_identically(tmp_path, monkeypatch):
     np.testing.assert_array_equal(res2.temperature, res_full.temperature)
 
 
-def test_preempted_roi_save_resumes_identically(tmp_path, monkeypatch):
+def test_preempted_roi_save_resumes_identically(tmp_path, monkeypatch, socex):
     """The checkpoint must carry the ROI-save crossing histograms too:
     completed units' contributions live only in roi['tally'] (regression:
     they were silently zero after a resume)."""
-    make_model(tmp_path)
+    make_model(tmp_path, socex)
     ini = tmp_path / "run.ini"
     ini.write_text(INI.format(bgpac=8 * 6 * N * N)
                    + "roi  2 7 2 7 2 7\nroisave  roi.photons 1\n"
@@ -122,11 +121,11 @@ def test_preempted_roi_save_resumes_identically(tmp_path, monkeypatch):
     np.testing.assert_array_equal(data2, data_full)
 
 
-def test_stale_checkpoint_is_ignored(tmp_path):
+def test_stale_checkpoint_is_ignored(tmp_path, socex):
     """A checkpoint written under a different configuration (other seed)
     must not be resumed: the re-run starts fresh and matches a clean run
     of the NEW configuration."""
-    ini = make_model(tmp_path)
+    ini = make_model(tmp_path, socex)
     driver.run(ini, lanes=1 << 10)                 # leaves run.ckpt behind
     assert (tmp_path / "run.ckpt").exists()
 
@@ -140,12 +139,12 @@ def test_stale_checkpoint_is_ignored(tmp_path):
     np.testing.assert_array_equal(res_stale.ctabs, res_clean.ctabs)
 
 
-def test_hpbg_resume_reports_full_injected(tmp_path, monkeypatch):
+def test_hpbg_resume_reports_full_injected(tmp_path, monkeypatch, socex):
     """`injected` bookkeeping must cover checkpoint-skipped channels
     (it was a make_params side effect that resume never executed)."""
     from soc_tpu.io.cloud import write_hierarchy as _wh
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     _wh(tmp_path / "tmp.cloud", N, N, N, [N ** 3],
         [np.ones(N ** 3, np.float32)])
     sky = np.tile(np.fromfile(tmp_path / "bg_intensity.bin",
@@ -175,8 +174,8 @@ def test_hpbg_resume_reports_full_injected(tmp_path, monkeypatch):
     np.testing.assert_array_equal(res2.ctabs, res_full.ctabs)
 
 
-def _phase2_ini(tmp_path, extra=""):
-    make_model(tmp_path)
+def _phase2_ini(tmp_path, socex, extra=""):
+    make_model(tmp_path, socex)
     ini = tmp_path / "run.ini"
     ini.write_text(INI.format(bgpac=8 * 6 * N * N)
                    .replace("iterations      1", "iterations      3")
@@ -185,13 +184,13 @@ def _phase2_ini(tmp_path, extra=""):
     return str(ini)
 
 
-def test_phase2_mid_sweep_resume_bit_identical(tmp_path, monkeypatch):
+def test_phase2_mid_sweep_resume_bit_identical(tmp_path, monkeypatch, socex):
     """Kill the run in the MIDDLE of iteration 1's re-emission sweep: the
     resumed run restores the partial per-channel tally (p2_tabs) and the
     iteration-0 state snapshot, reruns only the remaining channels, and
     reproduces the uninterrupted result bit for bit (SURVEY 5.4 --
     phase-2 preemption coverage)."""
-    ini = _phase2_ini(tmp_path)
+    ini = _phase2_ini(tmp_path, socex)
     res_full = driver.run(ini, lanes=1 << 10)
     full_ckpt = np.load(tmp_path / "run.ckpt")
     done_full = [str(k) for k in full_ckpt["done"]]
@@ -229,11 +228,11 @@ def test_phase2_mid_sweep_resume_bit_identical(tmp_path, monkeypatch):
     np.testing.assert_array_equal(res2.absorbed, res_full.absorbed)
 
 
-def test_phase2_resume_with_reference_and_ali(tmp_path, monkeypatch):
+def test_phase2_resume_with_reference_and_ali(tmp_path, monkeypatch, socex):
     """Iteration-boundary resume with the WITH_REFERENCE control variate
     and ALI carries: the oemitted/otabs/oxab state travels in the
     snapshot, so the continuation is bit-identical."""
-    ini = _phase2_ini(tmp_path, "reference 1\nALI\n")
+    ini = _phase2_ini(tmp_path, socex, "reference 1\nALI\n")
     res_full = driver.run(ini, lanes=1 << 10)
     os.remove(tmp_path / "run.ckpt")
     os.remove(tmp_path / "absorbed.data")
@@ -262,14 +261,14 @@ def test_phase2_resume_with_reference_and_ali(tmp_path, monkeypatch):
     np.testing.assert_array_equal(res2.emitted, res_full.emitted)
 
 
-def test_phase2_resume_with_emweight(tmp_path, monkeypatch):
+def test_phase2_resume_with_emweight(tmp_path, monkeypatch, socex):
     """EMWEI re-emission checkpoints at ITERATION granularity (the
     weighted per-frequency loop carries no mid-sweep units): killing the
     run inside iteration 1's weighted sweep resumes from the iteration-0
     snapshot, re-derives the identical allocations (Philox keyed by
     (seed, iteration) + the restored emitted field) and reproduces the
     uninterrupted run bit for bit."""
-    ini = _phase2_ini(tmp_path, extra="emweight 1 0 100\n")
+    ini = _phase2_ini(tmp_path, socex, extra="emweight 1 0 100\n")
     res_full = driver.run(ini, lanes=1 << 10)
     os.remove(tmp_path / "run.ckpt")
     os.remove(tmp_path / "absorbed.data")

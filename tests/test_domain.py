@@ -1,6 +1,5 @@
 """Spatial domain decomposition: slab split + live ppermute halo exchange."""
 
-import os
 
 import numpy as np
 import jax
@@ -122,7 +121,7 @@ def test_domain_cell_emission_matches_single_device(grid_kind):
     assert good.mean() > 0.98, f"only {good.mean():.3f} cells match"
 
 
-def test_domains_keyword_end_to_end(tmp_path):
+def test_domains_keyword_end_to_end(tmp_path, socex):
     """`domains 8` in the ini runs the whole rt pipeline with Z-slab
     decomposition on the 8-device mesh and reproduces the single-device
     results (same packet ids and RNG streams)."""
@@ -131,7 +130,7 @@ def test_domains_keyword_end_to_end(tmp_path):
     from soc_tpu.pipeline import driver
 
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join("/tmp/socex", f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     n = 8
     write_hierarchy(tmp_path / "tmp.cloud", n, n, n, [n ** 3],
                     [np.ones(n ** 3, np.float32)])
@@ -229,11 +228,11 @@ def test_domain_generator_sources_match_single_device(kind):
     assert match.mean() > 0.95
 
 
-def _write_base_model(tmp_path, n=8, octree=False):
+def _write_base_model(tmp_path, socex, n=8, octree=False):
     import shutil
     from soc_tpu.io.cloud import write_hierarchy
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join("/tmp/socex", f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     if octree:
         rng = np.random.default_rng(0)
         root = rng.uniform(0.5, 1.0, n ** 3).astype(np.float32)
@@ -283,23 +282,23 @@ def _compare_domain_run(tmp_path, base, extra):
     return res_s, res_d
 
 
-def test_domains_lifted_absorbed_ali_emweight_mirror(tmp_path):
+def test_domains_lifted_absorbed_ali_emweight_mirror(tmp_path, socex):
     """The round-2 `domains` exclusion list is gone: per-frequency
     absorption tallies, ALI self-absorption accounting, emission-weighted
     packet allocation and mirror boundaries all run Z-slab decomposed
     (the step physics is transport_run's own StepKit)."""
-    base = _write_base_model(tmp_path, octree=False)
+    base = _write_base_model(tmp_path, socex, octree=False)
     _compare_domain_run(tmp_path, base,
                         "ALI\nemweight 1 0 100\nmirror xX\n")
 
 
-def test_domains_lifted_split_octree(tmp_path):
+def test_domains_lifted_split_octree(tmp_path, socex):
     """Packet splitting at refinement boundaries under Z-slab domains."""
-    base = _write_base_model(tmp_path, octree=True)
+    base = _write_base_model(tmp_path, socex, octree=True)
     _compare_domain_run(tmp_path, base, "split\n")
 
 
-def test_domains_diffuse_with_emweight(tmp_path):
+def test_domains_diffuse_with_emweight(tmp_path, socex):
     """Phase-1 diffuse EMWEI under `domains N` (the Z-slab decomposition):
     the weighted cell_of_id source rides the same src_kw machinery as the
     phase-2 EMWEI and must match the single-device run."""
@@ -308,7 +307,7 @@ def test_domains_diffuse_with_emweight(tmp_path):
     from soc_tpu.pipeline import driver
     n = 8
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join("/tmp/socex", f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     write_hierarchy(tmp_path / "tmp.cloud", n, n, n, [n ** 3],
                     [np.ones(n ** 3, np.float32)])
     cells = n ** 3

@@ -16,7 +16,6 @@ from soc_tpu.config import RunConfig
 from soc_tpu.io.cloud import write_hierarchy
 from soc_tpu.pipeline import driver
 
-SOCEX = "/tmp/socex"
 N = 12          # root grid for all tests here
 LANES = 1 << 10
 
@@ -40,9 +39,9 @@ temperature     tmp.T
 
 
 @pytest.fixture()
-def model_dir(tmp_path):
+def model_dir(tmp_path, socex):
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     write_hierarchy(tmp_path / "tmp.cloud", N, N, N, [N ** 3],
                     [np.ones(N ** 3, np.float32)])
     return tmp_path

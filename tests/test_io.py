@@ -1,7 +1,6 @@
 """I/O codec round-trips + parity with the reference's on-disk formats."""
 
 import numpy as np
-import pytest
 
 from soc_tpu.grid import encode_link_np, decode_link_np, uniform_grid
 from soc_tpu.io.cloud import (read_cloud, read_hierarchy, write_hierarchy,
@@ -117,16 +116,12 @@ def test_map_file_roundtrip(tmp_path):
     np.testing.assert_array_equal(out, maps)
 
 
-def test_reference_example_files_parse():
-    """Parse the actual soc_example inputs (formats must match bit-for-bit)."""
-    import os
-    base = "/tmp/socex"
-    if not os.path.exists(os.path.join(base, "tmp.dust")):
-        pytest.skip("soc_example not extracted")
-    opt = read_simple_dust(os.path.join(base, "tmp.dust"), gl_pc=0.01)
+def test_reference_example_files_parse(socex):
+    """Parse the generated example inputs in the reference formats."""
+    opt = read_simple_dust(socex / "tmp.dust", gl_pc=0.01)
     assert opt.nfreq == 44
-    dsc, csc = read_scattering_function(os.path.join(base, "tmp.dsc"), 44, 2500)
+    dsc, csc = read_scattering_function(socex / "tmp.dsc", 44, 2500)
     assert dsc.shape == (44, 2500)
     from soc_tpu.io.fields import read_background_intensity
-    ibg = read_background_intensity(os.path.join(base, "bg_intensity.bin"), 44)
+    ibg = read_background_intensity(socex / "bg_intensity.bin", 44)
     assert np.all(ibg > 0)

@@ -1,6 +1,5 @@
 """Self-heating iterations: CLPAC re-emission, WITH_REFERENCE, EMWEI paths."""
 
-import os
 import shutil
 
 import numpy as np
@@ -8,8 +7,6 @@ import pytest
 
 from soc_tpu.io.cloud import write_hierarchy
 from soc_tpu.pipeline import driver
-
-SOCEX = "/tmp/socex"
 
 INI = """
 gridlength      0.01
@@ -32,13 +29,11 @@ nomap
 """
 
 
-def make_run(tmp_path, name, clpac, iters, extra=""):
-    if not os.path.exists(os.path.join(SOCEX, "tmp.dust")):
-        pytest.skip("soc_example not extracted")
+def make_run(tmp_path, socex, name, clpac, iters, extra=""):
     wd = tmp_path / name
     wd.mkdir()
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), wd)
+        shutil.copy(socex / f, wd)
     n = 8
     write_hierarchy(wd / "tmp.cloud", n, n, n, [n**3],
                     [np.ones(n**3, np.float32)])
@@ -48,53 +43,53 @@ def make_run(tmp_path, name, clpac, iters, extra=""):
     return driver.run(str(wd / "my.ini"), lanes=1 << 13)
 
 
-def test_self_heating_iterations(tmp_path):
-    res = make_run(tmp_path, "plain", clpac=2 * 8**3, iters=3)
+def test_self_heating_iterations(tmp_path, socex):
+    res = make_run(tmp_path, socex, "plain", clpac=2 * 8**3, iters=3)
     assert np.all(np.isfinite(res.temperature))
     assert np.all(res.temperature > 3.0)
     assert np.all(np.isfinite(res.emitted))
     assert res.emitted.max() > 0
 
 
-def test_with_reference_matches_plain(tmp_path):
+def test_with_reference_matches_plain(tmp_path, socex):
     """The reference-field control variate must converge to the same
     temperatures as the plain iteration."""
-    res_a = make_run(tmp_path, "a", clpac=2 * 8**3, iters=3)
-    res_b = make_run(tmp_path, "b", clpac=2 * 8**3, iters=3,
+    res_a = make_run(tmp_path, socex, "a", clpac=2 * 8**3, iters=3)
+    res_b = make_run(tmp_path, socex, "b", clpac=2 * 8**3, iters=3,
                      extra="reference 1")
     np.testing.assert_allclose(res_b.temperature, res_a.temperature,
                                rtol=0.02)
 
 
-def test_emweight_iteration(tmp_path):
-    res = make_run(tmp_path, "w", clpac=2 * 8**3, iters=2,
+def test_emweight_iteration(tmp_path, socex):
+    res = make_run(tmp_path, socex, "w", clpac=2 * 8**3, iters=2,
                    extra="emweight 1")
     assert np.all(np.isfinite(res.temperature))
     assert np.all(res.temperature > 3.0)
 
 
-def test_ali_iteration(tmp_path):
-    res = make_run(tmp_path, "ali", clpac=2 * 8**3, iters=2,
+def test_ali_iteration(tmp_path, socex):
+    res = make_run(tmp_path, socex, "ali", clpac=2 * 8**3, iters=2,
                    extra="ali 1")
     assert np.all(np.isfinite(res.temperature))
     assert np.all(res.temperature > 3.0)
 
 
-def test_subiterations(tmp_path):
+def test_subiterations(tmp_path, socex):
     """SUBITERATIONS hot/cold schedule converges to the plain result."""
-    res_p = make_run(tmp_path, "sub_p", clpac=4 * 8**3, iters=5)
-    res_s = make_run(tmp_path, "sub_s", clpac=4 * 8**3, iters=5,
+    res_p = make_run(tmp_path, socex, "sub_p", clpac=4 * 8**3, iters=5)
+    res_s = make_run(tmp_path, socex, "sub_s", clpac=4 * 8**3, iters=5,
                      extra="reference 1\nemweight 1\nSUBITERATIONS 1")
     np.testing.assert_allclose(res_s.temperature, res_p.temperature,
                                rtol=0.03)
 
 
-def test_with_reference_continuation_aabb(tmp_path):
+def test_with_reference_continuation_aabb(tmp_path, socex):
     """AABB encoding: a run continued from .save files (reference >1 with
     BB = first iteration of this run) reproduces a single longer run's
     temperatures and persists OEMITTED.save / OTABS.save."""
     # single 4-iteration run with ramp k = (it+0)/4
-    res_full = make_run(tmp_path, "full", clpac=2 * 8**3, iters=4,
+    res_full = make_run(tmp_path, socex, "full", clpac=2 * 8**3, iters=4,
                         extra="reference 402")
     wd = tmp_path / "full"
     assert (wd / "OEMITTED.save").exists()
@@ -102,7 +97,7 @@ def test_with_reference_continuation_aabb(tmp_path):
     # two chained runs: iterations 0-1 (BB=0), then 2-3 (BB=2) restoring
     # the saved reference field
     wd2 = tmp_path / "chain"
-    res_a = make_run(tmp_path, "chain", clpac=2 * 8**3, iters=2,
+    res_a = make_run(tmp_path, socex, "chain", clpac=2 * 8**3, iters=2,
                      extra="reference 400")
     (wd2 / "my2.ini").write_text(
         (wd2 / "my.ini").read_text().replace("reference 400",
@@ -112,13 +107,13 @@ def test_with_reference_continuation_aabb(tmp_path):
                                rtol=0.02)
 
 
-def test_reference_field_reduces_variance(tmp_path):
+def test_reference_field_reduces_variance(tmp_path, socex):
     """The control variate's purpose: iteration-to-iteration emission noise
     shrinks. Compare two seeds with and without the reference field."""
     t = {}
     for tag, extra in (("p", ""), ("r", "reference 1")):
         for s, seedval in (("1", "1.0"), ("2", "0.5")):
-            res = make_run(tmp_path, tag + s, clpac=2 * 8**3, iters=4,
+            res = make_run(tmp_path, socex, tag + s, clpac=2 * 8**3, iters=4,
                            extra=extra + "\nseed " + seedval)
             t[tag + s] = res.temperature
     dp = np.abs(t["p1"] - t["p2"]).mean()

@@ -61,7 +61,7 @@ def test_empty_bins_filled(data):
 
 
 @pytest.fixture(scope="module")
-def octree_rt():
+def octree_rt(socex):
     """REAL radiative-transfer absorbed/emitted pairs on a steep-gradient
     2-level octree cloud (density contrast 3 dex core-to-edge): the
     characterization workload VERDICT r3 item 8 asks for -- the dense-grid
@@ -90,7 +90,7 @@ def octree_rt():
     l1 = (2000.0 * (1.0 + rng.random(64))).astype(np.float32)
     tmp = tempfile.mkdtemp()
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join("/tmp/socex", f), tmp)
+        shutil.copy(socex / f, tmp)
     write_hierarchy(os.path.join(tmp, "tmp.cloud"), n, n, n,
                     [n ** 3, 64], [root, l1])
     base = """

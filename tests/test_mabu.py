@@ -5,11 +5,8 @@ import pytest
 
 from soc_tpu.constants import PLANCK
 from soc_tpu.pipeline import mabu
+from soc_tpu.io.example import gset_dust, isrf_absorptions
 from soc_tpu.solve import solver_prep
-
-import sys
-sys.path.insert(0, "tests")
-from test_solver_prep import synthetic_dust, isrf_absorptions  # noqa: E402
 
 
 def test_split_conserves_total():
@@ -43,7 +40,7 @@ def test_eqdust_energy_balance():
 
 def test_multi_dust_total_energy():
     """gset + eqdust mixture conserves total energy through the split."""
-    dust = synthetic_dust()
+    dust = gset_dust()
     freq = np.logspace(11.3, 15.2, 40)
     sol = solver_prep.build_solver(dust, freq, ne=64)
     comps = [
@@ -102,7 +99,7 @@ def test_polarised_emission_gset():
     """`polarisation` keyword path for a stochastic dust: PEMITTED from
     aligned sizes a >= aalg -- full alignment reproduces EMITTED, an
     unreachable aalg gives zero (A2E_MABU.py:971-983 / A2E.py aalg)."""
-    dust = synthetic_dust()
+    dust = gset_dust()
     freq = np.logspace(11.3, 15.2, 40)
     sol = solver_prep.build_solver(dust, freq, ne=64)
     comps = [mabu.DustComponent(name="gs", kind="gset", kabs=sol.k_abs,
@@ -164,7 +161,7 @@ def test_polarised_emission_eqdust_rfactor(tmp_path, monkeypatch):
     assert np.all(r_hi == 0.0)
 
 
-def test_eqsolve_cli(tmp_path):
+def test_eqsolve_cli(tmp_path, socex):
     """The eqsolve CLI mirrors EQ_solver.py (dust absorbed emitted [GPU],
     EQ_solver.py:10-17): equilibrium emission file + the raw-float32
     '<dust>.T' companion, consistent with solve_equilibrium_eqdust."""
@@ -175,7 +172,7 @@ def test_eqsolve_cli(tmp_path):
                                    write_cell_frequency_array)
     from soc_tpu.constants import PARSEC
 
-    shutil.copy("/tmp/socex/tmp.dust", tmp_path / "tmp.dust")
+    shutil.copy(socex / "tmp.dust", tmp_path / "tmp.dust")
     opt = read_simple_dust(str(tmp_path / "tmp.dust"), 1.0)
     nf = len(opt.freq)
     rng = np.random.default_rng(2)

@@ -6,7 +6,6 @@ file formats, energy conservation, and the physical plausibility of the
 temperature field and surface-brightness maps.
 """
 
-import os
 import shutil
 
 import numpy as np
@@ -17,7 +16,6 @@ from soc_tpu.io.fields import read_map_file, read_cell_frequency_array
 from soc_tpu.pipeline import driver
 from soc_tpu.config import RunConfig
 
-SOCEX = "/tmp/socex"
 
 INI = """
 gridlength      0.01
@@ -42,12 +40,10 @@ CLE
 
 
 @pytest.fixture(scope="module")
-def minirun(tmp_path_factory):
-    if not os.path.exists(os.path.join(SOCEX, "tmp.dust")):
-        pytest.skip("soc_example not extracted to /tmp/socex")
+def minirun(tmp_path_factory, socex):
     wd = tmp_path_factory.mktemp("minisoc")
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin", "freq.dat"):
-        shutil.copy(os.path.join(SOCEX, f), wd)
+        shutil.copy(socex / f, wd)
     n = 16
     write_hierarchy(wd / "tmp.cloud", n, n, n, [n**3],
                     [np.ones(n**3, np.float32)])

@@ -13,7 +13,6 @@ import pytest
 
 from soc_tpu.pipeline.full import run_pipeline
 
-SOCEX = "/tmp/socex"
 N = 10
 
 INI = """
@@ -36,9 +35,9 @@ emitted         emitted.data
 
 
 @pytest.fixture()
-def model_dir(tmp_path):
+def model_dir(tmp_path, socex):
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     from soc_tpu.io.cloud import write_hierarchy
     write_hierarchy(tmp_path / "tmp.cloud", N, N, N, [N ** 3],
                     [np.ones(N ** 3, np.float32)])

@@ -134,16 +134,15 @@ def test_pol_healpix_internal_observer():
     assert np.abs(s_q[:, :4]).max() < 2e-2 * s_i.max()
 
 
-def test_polstat2_replication(tmp_path):
+def test_polstat2_replication(tmp_path, socex):
     """POLSTAT 2 through the driver: periodic replication grows I with
     maxlos while plain POLSTAT 0 does not."""
-    import os
     import shutil
     from soc_tpu.io.cloud import write_hierarchy
     from soc_tpu.pipeline import driver
     n = 8
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join("/tmp/socex", f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     cells = n ** 3
     write_hierarchy(tmp_path / "tmp.cloud", n, n, n, [cells],
                     [np.ones(cells, np.float32)])

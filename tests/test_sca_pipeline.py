@@ -5,7 +5,6 @@ emitted file, diffuse field) and both output modes (orthographic maps,
 internal-observer healpix) through the ini-driven `scattering.run`.
 """
 
-import os
 import shutil
 
 import numpy as np
@@ -13,7 +12,6 @@ import pytest
 
 from soc_tpu.pipeline import driver, scattering
 
-SOCEX = "/tmp/socex"
 N = 10
 
 INI = """
@@ -35,9 +33,9 @@ simum           0.2 1.0
 
 
 @pytest.fixture()
-def model_dir(tmp_path):
+def model_dir(tmp_path, socex):
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     from soc_tpu.io.cloud import write_hierarchy
     write_hierarchy(tmp_path / "tmp.cloud", N, N, N, [N ** 3],
                     [np.ones(N ** 3, np.float32)])

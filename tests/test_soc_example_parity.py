@@ -1,11 +1,9 @@
-"""Float64-oracle parity on the ACTUAL soc_example workload.
+"""Float64-oracle parity on the example workload (soc_tpu.io.example).
 
-BASELINE.md's allclose bullet targets the reference test cloud: 64^3
-cells, 44 frequencies, the real tmp.dust / tmp.dsc physics.  The
-reference itself cannot run here (no OpenCL), so this is its closest
-realizable form (VERDICT r4 item 3): the MWC64X-emulated-stream twin
-harness of test_rng_parity runs the full frequency grid of the real
-workload at reduced packet count (mult=1: one cosine-law packet per
+The reference's example is a 64^3 cloud with 44 frequencies. The
+reference itself cannot run here (no OpenCL), so the MWC64X-emulated-
+stream twin harness of test_rng_parity runs the full frequency grid of
+the example at reduced packet count (mult=1: one cosine-law packet per
 surface element per channel, full-surface coverage), once as the float64
 oracle and once through the framework's float32 production geometry ops,
 and the whole downstream chain is compared:
@@ -21,7 +19,6 @@ down.
 """
 
 import os
-import zipfile
 
 import numpy as np
 import jax.numpy as jnp
@@ -34,23 +31,13 @@ from soc_tpu.io.fields import read_background_intensity
 from soc_tpu.solve import equilibrium
 from soc_tpu.transport.medium import medium_from_optics
 
-from conftest import SOCEX, _ZIP
 from test_rng_parity import _simulate
 
 
 @pytest.fixture(scope="module")
-def workload(tmp_path_factory):
-    wd = tmp_path_factory.mktemp("socex_parity")
-    with zipfile.ZipFile(_ZIP) as z:
-        for name in ("my.ini", "tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-            z.extract(name, wd)
-    n = 64
-    with open(wd / "tmp.cloud", "wb") as fp:
-        np.asarray([n, n, n, 1, n ** 3], np.int32).tofile(fp)
-        np.asarray([n ** 3], np.int32).tofile(fp)
-        np.ones(n ** 3, np.float32).tofile(fp)
+def workload(socex):
     orig = os.getcwd()
-    os.chdir(wd)
+    os.chdir(socex)
     try:
         from soc_tpu.config import RunConfig
         cfg = RunConfig("my.ini")

@@ -9,57 +9,15 @@ equals total absorbed energy, and the spectrum peaks at the equilibrium T.
 import numpy as np
 import pytest
 
-from soc_tpu.constants import BOLTZMANN, C_LIGHT, FACTOR, PLANCK
-from soc_tpu.solve.grain_model import GSETDust
+from soc_tpu.constants import PLANCK
+from soc_tpu.io.example import gset_dust, isrf_absorptions
 from soc_tpu.solve import solver_prep, stochastic
 from soc_tpu.solve.solver_file import write_solver, read_solver
 
 
-def synthetic_dust(nsize=2, size_a=None, s_frac=None):
-    """Silicate-ish grains with Debye-like enthalpy E ~ a^3 T^4 / (1+T)."""
-    qnfreq = 48
-    qfreq = np.logspace(11, 15.5, qnfreq)
-    qsize = np.asarray([5e-8, 1e-7, 1e-6, 1e-5])     # cm
-    # Qabs ~ a * nu law at low freq, saturating at 1
-    qabs = np.zeros((4, qnfreq))
-    for i, a in enumerate(qsize):
-        x = a * qfreq / 3e4
-        qabs[i] = x / (1.0 + x)
-    c_temp = np.logspace(0, np.log10(3000.0), 64)
-    c_size = qsize.copy()
-    # E(T) per grain: Debye T^3 heat capacity with T_D ~ 500 K and silicate
-    # atom density => E ~ 0.35 a^3 T^4 erg (a in cm), flattening above T_D
-    c_e = np.zeros((4, 64))
-    for i, a in enumerate(c_size):
-        c_e[i] = 0.35 * a**3 * c_temp**4 / (1.0 + (c_temp / 500.0) ** 3)
-    size_a = np.asarray([1e-7, 3e-6][:nsize] if size_a is None else size_a)
-    nsize = len(size_a)
-    s_frac = np.asarray([0.7, 0.3][:nsize] if s_frac is None else s_frac,
-                        np.float64)
-    s_frac = s_frac / s_frac.sum()
-    return GSETDust(
-        grain_density=1.0e-10, size_a=size_a, s_frac=s_frac,
-        tmin=np.full(nsize, 3.0), tmax=np.full(nsize, 200.0),
-        qsize=qsize, qfreq=qfreq, qabs=qabs, qsca=qabs * 0.5,
-        g=np.zeros((4, qnfreq)),
-        c_size=c_size, c_temp=c_temp, c_e=c_e)
-
-
-def isrf_absorptions(dust, freq, scale=1.0):
-    """Absorbed photons per H per Hz (x FACTOR) for a diluted 1e4 K field."""
-    t_rad = 1.0e4
-    w = 1.0e-13 * scale
-    x = np.clip(PLANCK * freq / (BOLTZMANN * t_rad), 1e-6, 600)
-    bnu = 2.0 * PLANCK * (freq / C_LIGHT) ** 2 * freq / np.expm1(x)
-    kabs = dust.kabs(freq)
-    # ABS (file convention) = FACTOR * 4 pi J_nu/(h nu) * kabs
-    return (FACTOR * 4.0 * np.pi * w * bnu
-            / (PLANCK * freq) * kabs).astype(np.float32)
-
-
 @pytest.fixture(scope="module")
 def solver():
-    dust = synthetic_dust()
+    dust = gset_dust()
     freq = np.logspace(11.3, 15.2, 40)
     return dust, freq, solver_prep.build_solver(dust, freq, ne=128)
 

@@ -1,7 +1,7 @@
 """Packet-splitting statistical equivalence on octree-refined clouds.
 
 The reference's SimBgSplit splits rays at refinement boundaries via dynamic
-per-ray stacks; the TPU equivalent splits in-flight: a packet crossing into
+per-ray stacks; here packets split in-flight: a packet crossing into
 a finer level halves its weight and posts a clone request served through
 the lane-refill machinery. Promise: expectation unchanged, refined-region
 variance reduced at (near-)equal cost.

@@ -8,17 +8,14 @@ trajectories => tallies must match to float tolerance, not just
 statistically.
 """
 
-import os
 import shutil
 
 import numpy as np
-import pytest
 
 from soc_tpu.io.cloud import write_hierarchy
 from soc_tpu.io.dust import read_simple_dust, write_simple_dust, DustOptics
 from soc_tpu.pipeline import driver
 
-SOCEX = "/tmp/socex"
 N = 10
 
 INI = """
@@ -39,9 +36,9 @@ nomap
 """
 
 
-def test_two_dust_varying_abundance_matches_density_scaled_single(tmp_path):
+def test_two_dust_varying_abundance_matches_density_scaled_single(tmp_path, socex):
     for f in ("tmp.dust", "tmp.dsc", "bg_intensity.bin"):
-        shutil.copy(os.path.join(SOCEX, f), tmp_path)
+        shutil.copy(socex / f, tmp_path)
     cells = N ** 3
     rng = np.random.default_rng(11)
     rho = rng.uniform(1e4, 5e4, cells).astype(np.float32)
